@@ -7,20 +7,6 @@ import pytest
 from vkradixsort_tpu.ops import common
 from tests.conftest import make_keys
 
-import jax as _jax
-
-# float64 <-> u64 bitcasts are unimplemented by the TPU X64 rewriter; the
-# public API REFUSES f64 keys there (dispatch._check_f64_on_tpu).
-_skip_f64_on_tpu = _jax.default_backend() == "tpu"
-
-
-def _f64_skip(dtype):
-    import pytest as _pytest
-
-    if _skip_f64_on_tpu and np.dtype(dtype) == np.float64:
-        _pytest.skip("f64 bitcast unimplemented on TPU; f64 routed natively")
-
-
 
 @pytest.mark.parametrize(
     "dtype,dist",
@@ -34,7 +20,6 @@ def _f64_skip(dtype):
     ],
 )
 def test_encode_order_preserving(rng, dtype, dist):
-    _f64_skip(dtype)
     keys = make_keys(rng, 4096, dtype, dist)
     if np.dtype(dtype).kind == "f":
         keys[:16] = [0.0, -0.0, np.inf, -np.inf, 1.5, -1.5, 1e-38, -1e-38] * 2
@@ -46,7 +31,6 @@ def test_encode_order_preserving(rng, dtype, dist):
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.uint64, np.int32, np.int64, np.float32, np.float64])
 def test_encode_decode_roundtrip(rng, dtype):
-    _f64_skip(dtype)
     keys = make_keys(rng, 2048, dtype, "uniform")
     enc = common.encode_keys(jnp.asarray(keys))
     dec = np.asarray(common.decode_keys(enc, dtype))

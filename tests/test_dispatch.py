@@ -1,53 +1,37 @@
-"""Public API dispatch: every engine yields the identical exact result.
+"""Public API dispatch: the routing rule, and both paths' exact results.
 
 The reference validates each program against std::sort separately
 (SingleRadixSort.cpp:113-126, MultiRadixSort.cpp:148-161); here one suite
-drives all engines through the same public entry points.
+drives both paths through the same public entry points.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import vkradixsort_tpu as vk
 from tests.conftest import make_keys
+from vkradixsort_tpu.ops import dispatch, reference
 
-INTERPRET = jax.default_backend() != "tpu"
-CFG = vk.SortConfig(interpret=INTERPRET)
-
-# engines excluding "fused" (its interpret-mode runtime is minutes even at
-# 4k; test_fused.py covers it at small sizes)
-ENGINES = ["tiled", "merge", "bitonic", "samplesort", "radix_tiled", "reference"]
+ENGINES = ["tiled", "reference"]
+REMOVED_ENGINES = ["merge", "bitonic", "fused", "samplesort", "radix_tiled"]
 
 
 @pytest.mark.parametrize("engine", ENGINES)
 def test_sort_engines_exact(rng, engine):
     k = make_keys(rng, 20_000, np.uint32, "uniform")
-    out = np.asarray(vk.sort(jnp.asarray(k), config=CFG, backend=engine))
+    out = np.asarray(vk.sort(jnp.asarray(k), backend=engine))
     np.testing.assert_array_equal(out, np.sort(k))
 
 
-@pytest.mark.parametrize(
-    "engine", ["tiled", "merge", "bitonic", "radix_tiled", "reference"]
-)
+@pytest.mark.parametrize("engine", ENGINES)
 def test_sort_pairs_engines_stable(rng, engine):
     k = make_keys(rng, 8_192, np.uint32, "uniform") % 97  # heavy ties
     v = np.arange(k.size, dtype=np.uint32)
-    ok, ov = vk.sort_pairs(jnp.asarray(k), jnp.asarray(v), config=CFG, backend=engine)
+    ok, ov = vk.sort_pairs(jnp.asarray(k), jnp.asarray(v), backend=engine)
     perm = np.argsort(k, kind="stable")
     np.testing.assert_array_equal(np.asarray(ok), k[perm])
     np.testing.assert_array_equal(np.asarray(ov), perm.astype(np.uint32))
-
-
-def test_samplesort_pairs_via_dispatch(rng):
-    k = make_keys(rng, 70_000, np.uint32, "uniform") % 1009
-    v = np.arange(1, 70_001, dtype=np.uint32)
-    ok, ov = vk.sort_pairs(jnp.asarray(k), jnp.asarray(v),
-                           config=CFG, backend="samplesort")
-    perm = np.argsort(k, kind="stable")
-    np.testing.assert_array_equal(np.asarray(ok), k[perm])
-    np.testing.assert_array_equal(np.asarray(ov), v[perm])
 
 
 def test_unknown_backend_raises(rng):
@@ -56,36 +40,11 @@ def test_unknown_backend_raises(rng):
         vk.sort(k, backend="quantum")
 
 
-def test_bitonic_vmem_bound_raises():
-    k = jnp.zeros((1 << 23,), jnp.uint32)
-    with pytest.raises(ValueError, match="VMEM"):
-        vk.sort(k, config=CFG, backend="bitonic")
-
-
-def test_bitonic_vmem_bound_is_plane_aware():
-    # u64-key kv = 2 key planes + position plane + payload plane: 4x the
-    # keys-only residency, so the guard must trip at 1/4 the keys-only
-    # bound rather than dying in Mosaic (VERDICT r4 weak #5). Derive n
-    # from the attached device's budget (16 MB CPU table / 64 MB v5e).
-    from vkradixsort_tpu.engine.context import default_context
-
-    kv64_bound = default_context().info.vmem_bytes // (16 * 4)
-    n = 2 * kv64_bound  # over the 4-plane bound, under the keys-only one
-    k = jnp.zeros((n,), jnp.uint64)
-    v = jnp.zeros((n,), jnp.uint32)
-    with pytest.raises(ValueError, match="VMEM"):
-        vk.sort_pairs(k, v, config=CFG, backend="bitonic")
-
-
-def test_default_route_off_tpu(rng):
-    # Default routing must be exact for every supported dtype. float64 is
-    # refused on TPU (f64 there is a float32 pair and would be perturbed).
+def test_default_route_every_dtype(rng):
+    # Default routing must be exact for every supported dtype, float64
+    # included.
     for dtype in [np.uint32, np.int32, np.float32, np.uint64, np.int64, np.float64]:
         k = make_keys(rng, 4_096, np.dtype(dtype).newbyteorder("="), "uniform")
-        if dtype == np.float64 and jax.default_backend() == "tpu":
-            with pytest.raises(TypeError, match="float64"):
-                vk.sort(jnp.asarray(k))
-            continue
         out = np.asarray(vk.sort(jnp.asarray(k)))
         np.testing.assert_array_equal(out, np.sort(k))
 
@@ -93,7 +52,7 @@ def test_default_route_off_tpu(rng):
 def test_sort_descending_exact(rng):
     for dtype in [np.uint32, np.int32, np.float32]:
         k = make_keys(rng, 4_096, np.dtype(dtype).newbyteorder("="), "uniform")
-        out = np.asarray(vk.sort(jnp.asarray(k), config=CFG, descending=True))
+        out = np.asarray(vk.sort(jnp.asarray(k), descending=True))
         np.testing.assert_array_equal(out, np.sort(k)[::-1])
 
 
@@ -103,11 +62,11 @@ def test_sort_pairs_descending_stable(rng):
     # stable argsort of the bit-complemented keys.
     k = make_keys(rng, 8_192, np.uint32, "uniform") % 97
     v = np.arange(k.size, dtype=np.uint32)
-    ok, ov = vk.sort_pairs(jnp.asarray(k), jnp.asarray(v), config=CFG, descending=True)
+    ok, ov = vk.sort_pairs(jnp.asarray(k), jnp.asarray(v), descending=True)
     perm = np.argsort(~k, kind="stable")
     np.testing.assert_array_equal(np.asarray(ok), k[perm])
     np.testing.assert_array_equal(np.asarray(ov), perm.astype(np.uint32))
-    agot = np.asarray(vk.argsort(jnp.asarray(k), config=CFG, descending=True))
+    agot = np.asarray(vk.argsort(jnp.asarray(k), descending=True))
     np.testing.assert_array_equal(agot, perm.astype(np.uint32))
 
 
@@ -128,11 +87,10 @@ def test_sort_pairs_multi_payload(rng):
     v2 = rng.standard_normal(k.size).astype(np.float32)
     v3 = (k % 7).astype(np.int32)
     perm = np.argsort(k, kind="stable")
-    for engine in ["tiled", "bitonic", "reference"]:
+    for engine in ENGINES:
         ok, (o1, o2, o3) = vk.sort_pairs(
             jnp.asarray(k),
             (jnp.asarray(v1), jnp.asarray(v2), jnp.asarray(v3)),
-            config=CFG,
             backend=engine,
         )
         np.testing.assert_array_equal(np.asarray(ok), k[perm], err_msg=engine)
@@ -167,7 +125,7 @@ def test_sort_pairs_unstable_packed(rng, monkeypatch):
     k = make_keys(rng, 30_000, np.uint32, "uniform") % 977
     v = rng.standard_normal(k.size).astype(np.float32)
     ok, ov = vk.sort_pairs(
-        jnp.asarray(k), jnp.asarray(v), config=CFG, backend="tiled", stable=False
+        jnp.asarray(k), jnp.asarray(v), backend="tiled", stable=False
     )
     ok, ov = np.asarray(ok), np.asarray(ov)
     assert calls, "packed unstable route did not fire"
@@ -178,115 +136,10 @@ def test_sort_pairs_unstable_packed(rng, monkeypatch):
 
     # descending composes
     okd, ovd = vk.sort_pairs(
-        jnp.asarray(k), jnp.asarray(v), config=CFG, backend="tiled",
+        jnp.asarray(k), jnp.asarray(v), backend="tiled",
         stable=False, descending=True,
     )
     np.testing.assert_array_equal(np.asarray(okd), np.sort(k)[::-1])
-
-
-def test_sort_pairs_unstable_packed_despite_merge_route(rng, monkeypatch):
-    # the stable-kv route flipping to the merge engine above 8e7 must NOT
-    # drag stable=False onto the slower stable composite: implicit routing
-    # keeps the packed-u64 direct i64 sort (341 ms vs 449 ms at 1e8 on v5e)
-    from vkradixsort_tpu.engine import config as cfgmod
-    from vkradixsort_tpu.ops import dispatch, segsort
-
-    monkeypatch.setattr(dispatch, "_on_tpu", lambda: True)
-    monkeypatch.setitem(cfgmod.ROUTE_TABLE, "kv", [(float("inf"), "merge")])
-    calls = []
-    real = segsort.sort_flat
-    monkeypatch.setattr(
-        segsort, "sort_flat", lambda *a, **kw: (calls.append(1), real(*a, **kw))[1]
-    )
-    k = make_keys(rng, 30_000, np.uint32, "uniform") % 977
-    v = rng.standard_normal(k.size).astype(np.float32)
-    ok, ov = vk.sort_pairs(jnp.asarray(k), jnp.asarray(v), stable=False)
-    assert calls, "packed unstable fast path must fire despite the merge route"
-    np.testing.assert_array_equal(np.asarray(ok), np.sort(k))
-    pin = np.sort((k.astype(np.uint64) << 32) | v.view(np.uint32))
-    pout = np.sort(
-        (np.asarray(ok).astype(np.uint64) << 32) | np.asarray(ov).view(np.uint32)
-    )
-    np.testing.assert_array_equal(pin, pout)
-
-
-def test_sort_pairs_unstable_merge_route(rng, monkeypatch):
-    # above the kv_unstable crossover the route drops the stable sort's
-    # tie-break (synthetic plane) and runs the 2-plane merge composite
-    # (254.0 ms vs packed's 341.8 at 1e8 on v5e): keys sorted, pair
-    # multiset preserved, packed path NOT taken, and the engine invoked
-    # WITHOUT the stability carry
-    from vkradixsort_tpu.engine import config as cfgmod
-    from vkradixsort_tpu.ops import dispatch, merge as merge_mod, segsort
-
-    monkeypatch.setattr(dispatch, "_on_tpu", lambda: True)
-    monkeypatch.setitem(
-        cfgmod.ROUTE_TABLE, "kv_unstable", [(float("inf"), "merge")]
-    )
-    monkeypatch.setitem(cfgmod.SEGSEED_TABLE, "kv", [(float("inf"), False)])
-    packed_calls = []
-    real_flat = segsort.sort_flat
-    monkeypatch.setattr(
-        segsort, "sort_flat",
-        lambda *a, **kw: (packed_calls.append(1), real_flat(*a, **kw))[1],
-    )
-    seen_nck = []
-    real_planes = merge_mod.sort_merge_planes
-    def spy_planes(planes, nck, **kw):
-        seen_nck.append((len(planes), nck))
-        return real_planes(planes, nck, **kw)
-    monkeypatch.setattr(merge_mod, "sort_merge_planes", spy_planes)
-    n = 40_000
-    k = make_keys(rng, n, np.uint32, "zipf")  # heavy duplicates
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = vk.sort_pairs(jnp.asarray(k), jnp.asarray(v), config=CFG, stable=False)
-    assert not packed_calls, "merge route must bypass the packed path"
-    assert seen_nck == [(2, 1)], f"2 planes / 1 compare plane, got {seen_nck}"
-    ok, ov = np.asarray(ok), np.asarray(ov)
-    np.testing.assert_array_equal(ok, np.sort(k))
-    pin = np.sort((k.astype(np.uint64) << 32) | v.astype(np.uint64))
-    pout = np.sort((ok.astype(np.uint64) << 32) | ov.astype(np.uint64))
-    np.testing.assert_array_equal(pin, pout)
-
-    # multi-payload unstable rides the same route (no packed equivalent)
-    v2 = (~v).view(np.int32)
-    ok2, (ova, ovb) = vk.sort_pairs(
-        jnp.asarray(k), (jnp.asarray(v), jnp.asarray(v2)), config=CFG, stable=False
-    )
-    np.testing.assert_array_equal(np.asarray(ok2), np.sort(k))
-    np.testing.assert_array_equal(
-        np.asarray(ova), (~np.asarray(ovb).view(np.uint32)) & 0xFFFFFFFF
-    )
-
-
-def test_segseed_table_width_flows_through_dispatch(rng, monkeypatch):
-    # SEGSEED_TABLE rows may hold an int seed WIDTH (not just on/off); the
-    # dispatcher must hand it to the engine unmodified so the measured
-    # width optima route (engine/config.segseed_for -> merge._segsort_seed)
-    from vkradixsort_tpu.engine import config as cfgmod
-    from vkradixsort_tpu.ops import dispatch, merge as merge_mod
-
-    monkeypatch.setattr(dispatch, "_on_tpu", lambda: True)
-    monkeypatch.setitem(cfgmod.ROUTE_TABLE, "kv", [(float("inf"), "merge")])
-    monkeypatch.setitem(cfgmod.SEGSEED_TABLE, "kv", [(float("inf"), 8192)])
-    widths = []
-    real_seed = merge_mod._segsort_seed
-    monkeypatch.setattr(
-        merge_mod,
-        "_segsort_seed",
-        lambda planes, nck, width=None, stable=False: (
-            widths.append(width),
-            real_seed(planes, nck, width=width, stable=stable),
-        )[1],
-    )
-    n = 40_000
-    k = make_keys(rng, n, np.uint32, "zipf")
-    v = np.arange(n, dtype=np.uint32)
-    ok, ov = vk.sort_pairs(jnp.asarray(k), jnp.asarray(v), config=CFG)
-    assert widths == [8192], f"table width must reach the seed, got {widths}"
-    perm = np.argsort(k, kind="stable")
-    np.testing.assert_array_equal(np.asarray(ok), k[perm])
-    np.testing.assert_array_equal(np.asarray(ov), perm.astype(np.uint32))
 
 
 def test_2d_inputs_route_to_segments(rng):
@@ -305,20 +158,13 @@ def test_2d_inputs_route_to_segments(rng):
         np.asarray(vk.argsort(jnp.asarray(k))), perm2d.astype(np.uint32)
     )
     with pytest.raises(ValueError, match="backend"):
-        vk.sort(jnp.asarray(k), backend="bitonic")
-
-
-def test_sort_pairs_multi_payload_single_plane_engines(rng):
-    k = jnp.asarray(make_keys(rng, 4_096, np.uint32, "uniform"))
-    v = jnp.arange(4_096, dtype=jnp.uint32)
-    with pytest.raises(NotImplementedError, match="single payload"):
-        vk.sort_pairs(k, (v, v), config=CFG, backend="samplesort")
+        vk.sort(jnp.asarray(k), backend="tiled")
 
 
 def test_argsort_stable_all_engines(rng):
     k = make_keys(rng, 4_096, np.uint32, "uniform") % 13
-    for engine in ["tiled", "bitonic", "reference"]:
-        perm = np.asarray(vk.argsort(jnp.asarray(k), config=CFG, backend=engine))
+    for engine in ENGINES:
+        perm = np.asarray(vk.argsort(jnp.asarray(k), backend=engine))
         np.testing.assert_array_equal(perm, np.argsort(k, kind="stable"))
 
 
@@ -341,17 +187,76 @@ def test_argsort_packed_fast_path(rng, monkeypatch):
     )
 
     k = make_keys(rng, 50_000, np.uint32, "uniform") % 7
-    perm = np.asarray(vk.argsort(jnp.asarray(k), config=CFG, backend="tiled"))
+    perm = np.asarray(vk.argsort(jnp.asarray(k), backend="tiled"))
     np.testing.assert_array_equal(perm, np.argsort(k, kind="stable"))
     assert calls, "packed argsort fast path did not fire"
 
     kf = rng.standard_normal(50_000).astype(np.float32)
     kf[::17] = kf[0]  # ties
-    permf = np.asarray(vk.argsort(jnp.asarray(kf), config=CFG, backend="tiled"))
+    permf = np.asarray(vk.argsort(jnp.asarray(kf), backend="tiled"))
     np.testing.assert_array_equal(permf, np.argsort(kf, kind="stable"))
 
     # descending via the complement composes with the packed path
     permd = np.asarray(
-        vk.argsort(jnp.asarray(k), config=CFG, backend="tiled", descending=True)
+        vk.argsort(jnp.asarray(k), backend="tiled", descending=True)
     )
     np.testing.assert_array_equal(permd, np.argsort(~k, kind="stable"))
+
+
+# --- the routing rule -------------------------------------------------------
+
+ENTRY_POINTS = {
+    "sort": lambda k, **kw: vk.sort(k, **kw),
+    "sort_pairs": lambda k, **kw: vk.sort_pairs(k, jnp.arange(k.shape[0], dtype=jnp.uint32), **kw),
+    "sort_pairs_unstable": lambda k, **kw: vk.sort_pairs(
+        k, jnp.arange(k.shape[0], dtype=jnp.uint32), stable=False, **kw),
+    "sort_pairs_multi": lambda k, **kw: vk.sort_pairs(
+        k, (jnp.arange(k.shape[0], dtype=jnp.uint32), k), **kw),
+    "argsort": lambda k, **kw: vk.argsort(k, **kw),
+}
+
+
+def test_route_rule():
+    assert dispatch._route(None) == "tiled"
+    assert dispatch._route("tiled") == "tiled"
+    assert dispatch._route("reference") == "reference"
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.float32, np.uint64, np.int64])
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_default_route_never_reaches_reference(rng, monkeypatch, entry, dtype):
+    # backend=None must run the XLA path on every platform: the jnp oracle
+    # is never a device default
+    def refuse(*a, **kw):
+        raise AssertionError("backend=None reached the reference oracle")
+
+    monkeypatch.setattr(reference, "_sort_encoded", refuse)
+    k = make_keys(rng, 1_000, dtype, "uniform")
+    out = ENTRY_POINTS[entry](jnp.asarray(k))
+    first = np.asarray(out[0] if isinstance(out, tuple) else out)
+    want = np.argsort(k, kind="stable") if entry == "argsort" else np.sort(k)
+    np.testing.assert_array_equal(first, want)
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_explicit_reference_backend_runs_the_oracle(rng, monkeypatch, entry):
+    calls = []
+    real = reference._sort_encoded
+    monkeypatch.setattr(
+        reference, "_sort_encoded",
+        lambda *a, **kw: (calls.append(1), real(*a, **kw))[1],
+    )
+    k = make_keys(rng, 1_000, np.uint32, "uniform") % 31
+    out = ENTRY_POINTS[entry](jnp.asarray(k), backend="reference")
+    assert calls, "backend='reference' did not run the oracle"
+    first = np.asarray(out[0] if isinstance(out, tuple) else out)
+    want = np.argsort(k, kind="stable") if entry == "argsort" else np.sort(k)
+    np.testing.assert_array_equal(first, want)
+
+
+@pytest.mark.parametrize("engine", REMOVED_ENGINES)
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_removed_engine_raises(entry, engine):
+    k = jnp.arange(64, dtype=jnp.uint32)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ENTRY_POINTS[entry](k, backend=engine)

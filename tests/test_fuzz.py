@@ -36,42 +36,6 @@ def _keys(rng, n, dtype, dist):
     return make_keys(rng, n, dtype, dist)
 
 
-MERGE_CASES = 6
-
-
-@pytest.mark.parametrize("case", range(MERGE_CASES))
-def test_fuzz_merge_engine(case):
-    """Merge-engine fuzz through the public API (interpret mode): random
-    size x grain x key dtype x payload mix, so ladder-level/window-shift
-    combinations the structured merge tests never hit still get covered."""
-    rng = np.random.default_rng(0x3E0 + case)
-    n = int(rng.integers(1, 24_000))
-    dtype = np.dtype(rng.choice([np.uint32, np.float32, np.uint64]))
-    tile = int(rng.choice([1 << 12, 1 << 13, 1 << 14]))
-    cfg = vk.SortConfig(interpret=True, tile=tile)
-    dist = "uniform" if dtype.kind == "f" else rng.choice(
-        ["uniform", "descending", "constant", "zipf"]
-    )
-    k = _keys(rng, n, dtype, dist)
-    perm = np.argsort(k, kind="stable")
-
-    got = np.asarray(vk.sort(jnp.asarray(k), backend="merge", config=cfg))
-    np.testing.assert_array_equal(got, np.sort(k), err_msg=f"{n} {dtype} {tile}")
-
-    npay = int(rng.integers(1, 3))
-    vals = [np.arange(n, dtype=np.uint32)]
-    if npay == 2:
-        vals.append(rng.standard_normal(n).astype(np.float32))
-    ok, ovs = vk.sort_pairs(
-        jnp.asarray(k), tuple(jnp.asarray(v) for v in vals),
-        backend="merge", config=cfg,
-    )
-    np.testing.assert_array_equal(np.asarray(ok), k[perm])
-    for v, ov in zip(vals, ovs):
-        np.testing.assert_array_equal(np.asarray(ov), v[perm],
-                                      err_msg=f"{n} {dtype} {tile} x{npay}")
-
-
 @pytest.mark.parametrize("case", range(CASES))
 def test_fuzz_sort_and_pairs(case):
     rng = np.random.default_rng(0xF0 + case)

@@ -32,3 +32,16 @@ def test_trace_writes_dir(tmp_path):
     import os
 
     assert os.path.isdir(d)
+
+
+def test_median_seconds_fences_and_warms_up():
+    from vkradixsort_tpu.utils.timing import median_seconds
+
+    calls = []
+
+    def f(x):
+        calls.append(1)
+        return x * 2
+
+    t = median_seconds(f, jnp.arange(8), reps=3)
+    assert t >= 0 and len(calls) == 4  # one warm-up + three timed calls

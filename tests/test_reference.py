@@ -12,20 +12,6 @@ import pytest
 from vkradixsort_tpu.ops import common, reference
 from tests.conftest import make_keys
 
-import jax as _jax
-
-# float64 <-> u64 bitcasts are unimplemented by the TPU X64 rewriter; the
-# public API REFUSES f64 keys there (dispatch._check_f64_on_tpu).
-_skip_f64_on_tpu = _jax.default_backend() == "tpu"
-
-
-def _f64_skip(dtype):
-    import pytest as _pytest
-
-    if _skip_f64_on_tpu and np.dtype(dtype) == np.float64:
-        _pytest.skip("f64 bitcast unimplemented on TPU; f64 routed natively")
-
-
 
 def test_chunk_histograms_vs_bincount(rng):
     keys = jnp.asarray(make_keys(rng, 8192, np.uint32, "uniform"))
@@ -72,7 +58,6 @@ def test_sort_u32_matches_numpy(rng, n, dist):
 
 @pytest.mark.parametrize("dtype", [np.uint64, np.int32, np.int64, np.float32, np.float64])
 def test_sort_other_dtypes(rng, dtype):
-    _f64_skip(dtype)
     keys = make_keys(rng, 4096, dtype, "uniform")
     got = np.asarray(reference.radix_sort_reference(jnp.asarray(keys)))
     np.testing.assert_array_equal(got, np.sort(keys, kind="stable"))

@@ -7,35 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import vkradixsort_tpu as vk
-from vkradixsort_tpu.ops import segsort
-from vkradixsort_tpu.ops.bitonic import bitonic_sort_block
+from vkradixsort_tpu.engine.context import DeviceContext
 from vkradixsort_tpu.parallel.distributed import gather_sorted, sort_sharded
-
-INTERPRET = jax.default_backend() != "tpu"
-
-
-def test_bitonic_values_with_sentinel_keys(rng):
-    """int32-max keys + values: payloads must survive the padding."""
-    n = 3000  # pads to 4096 -> 1096 sentinel-key paddings
-    keys = rng.integers(0, 100, size=n).astype(np.int32)
-    keys[:50] = np.iinfo(np.int32).max  # collide with the padding sentinel
-    vals = np.arange(1, n + 1, dtype=np.int32)  # no zeros: zeros = padding
-    got_k, (got_v,) = bitonic_sort_block(
-        jnp.asarray(keys), (jnp.asarray(vals),), stable=False, interpret=INTERPRET
-    )
-    perm = np.argsort(keys, kind="stable")
-    np.testing.assert_array_equal(np.asarray(got_k), keys[perm])
-    np.testing.assert_array_equal(np.asarray(got_v), vals[perm])
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs a multi-device mesh")
 def test_sort_sharded_kv_sentinel_keys(rng):
     """Distributed kv with keys at the encoded sentinel (INT32_MAX for i32):
     every payload must come back exactly."""
-    from vkradixsort_tpu.engine.context import TPUContext
-
-    mesh = TPUContext().mesh_1d("x")
+    mesh = DeviceContext().mesh_1d("x")
     P = mesh.shape["x"]
     n = P * P * 512
     keys = rng.integers(-1000, 1000, size=n).astype(np.int32)
@@ -53,9 +33,7 @@ def test_sort_sharded_kv_sentinel_keys(rng):
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs a multi-device mesh")
 def test_sort_sharded_kv_u32_max_keys(rng):
-    from vkradixsort_tpu.engine.context import TPUContext
-
-    mesh = TPUContext().mesh_1d("x")
+    mesh = DeviceContext().mesh_1d("x")
     P = mesh.shape["x"]
     n = P * P * 256
     keys = rng.integers(0, 50, size=n, dtype=np.uint32)
@@ -69,15 +47,3 @@ def test_sort_sharded_kv_u32_max_keys(rng):
     perm = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(got_k, keys[perm])
     np.testing.assert_array_equal(got_v, vals[perm])
-
-
-def test_dispatch_bitonic_pairs_sentinel(rng):
-    keys = rng.integers(0, 10, size=2000, dtype=np.uint32)
-    keys[::3] = np.uint32(0xFFFFFFFF)
-    vals = np.arange(1, 2001, dtype=np.uint32)
-    cfg = vk.SortConfig(interpret=INTERPRET)
-    ok, ov = vk.sort_pairs(jnp.asarray(keys), jnp.asarray(vals),
-                           config=cfg, backend="bitonic")
-    perm = np.argsort(keys, kind="stable")
-    np.testing.assert_array_equal(np.asarray(ok), keys[perm])
-    np.testing.assert_array_equal(np.asarray(ov), vals[perm])

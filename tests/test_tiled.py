@@ -1,18 +1,12 @@
-"""Tests for the large-N paths: segsort wrappers, histogram kernel,
-explicit radix pipeline, and the tiled dispatcher."""
+"""Tests for the flat and segmented XLA sort paths: segsort wrappers and the
+tiled dispatcher."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkradixsort_tpu.engine.config import SortConfig
 from vkradixsort_tpu.ops import common, segsort, tiled
-from vkradixsort_tpu.ops.histogram import tile_histograms
-from vkradixsort_tpu.ops.radix_tiled import pass_destinations, sort_radix_tiled
 from tests.conftest import make_keys
-
-INTERPRET = jax.default_backend() != "tpu"
 
 
 def test_signed_order_roundtrip(rng):
@@ -45,47 +39,6 @@ def test_sort_segments(rng):
     k = make_keys(rng, 8192, np.uint32, "uniform").reshape(4, 2048)
     out, _ = segsort.sort_segments(jnp.asarray(k))
     np.testing.assert_array_equal(np.asarray(out), np.sort(k, axis=1))
-
-
-@pytest.mark.parametrize("shift", [0, 8, 16, 24])
-def test_tile_histograms(rng, shift):
-    k = make_keys(rng, 8192, np.uint32, "uniform")
-    hist = np.asarray(tile_histograms(jnp.asarray(k), shift, tile=2048, interpret=INTERPRET))
-    digits = (k >> shift) & 0xFF
-    for t in range(4):
-        want = np.bincount(digits[t * 2048 : (t + 1) * 2048], minlength=256)
-        np.testing.assert_array_equal(hist[t], want)
-
-
-def test_tile_histograms_padding(rng):
-    k = make_keys(rng, 3000, np.uint32, "uniform")
-    hist = np.asarray(tile_histograms(jnp.asarray(k), 0, tile=2048, interpret=INTERPRET))
-    assert hist.shape == (8, 256)  # padded to TILES_PER_STEP tiles
-    assert hist.sum() == 8 * 2048  # padding counted in bin 255
-    digits = k & 0xFF
-    np.testing.assert_array_equal(
-        hist[0], np.bincount(digits[:2048], minlength=256)
-    )
-
-
-def test_pass_destinations_match_stable_argsort(rng):
-    k = make_keys(rng, 6000, np.uint32, "uniform")
-    for shift in (0, 24):
-        dest = np.asarray(pass_destinations(jnp.asarray(k), shift, tile=2048, interpret=INTERPRET))
-        digits = (k >> shift) & 0xFF
-        perm = np.argsort(digits, kind="stable")
-        want = np.empty_like(perm)
-        want[perm] = np.arange(len(k))
-        np.testing.assert_array_equal(dest, want)
-
-
-def test_sort_radix_tiled_full(rng):
-    k = make_keys(rng, 10_000, np.uint32, "uniform")
-    v = jnp.arange(10_000, dtype=jnp.int32)
-    out_k, out_v = sort_radix_tiled(jnp.asarray(k), v, interpret=INTERPRET)
-    perm = np.argsort(k, kind="stable")
-    np.testing.assert_array_equal(np.asarray(out_k), k[perm])
-    np.testing.assert_array_equal(np.asarray(out_v), perm.astype(np.int32))
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.uint64])

@@ -1,11 +1,8 @@
-"""vkradixsort_tpu — a TPU-native vectorized sort engine.
+"""vkradixsort_tpu — a vectorized sort engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the Vulkan/GLSL
-radix sort reference (MircoWerner/VkRadixSort): stable LSD radix sort over
-uint32/uint64 keys and key-value pairs, with a size-adaptive dispatch between
-a fused in-VMEM kernel (analog of ``single_radixsort.comp``) and a multi-pass
-tiled HBM pipeline (analog of ``multi_radixsort_histograms.comp`` +
-``multi_radixsort.comp``), extended to multi-chip / multi-host TPU meshes via
+A JAX/XLA framework with the capabilities of the Vulkan/GLSL radix sort
+reference (MircoWerner/VkRadixSort): stable sorts over 8- to 64-bit integer
+and float keys and key-value pairs, extended to multi-device meshes via
 splitter-sampled range partitioning and an all-to-all key shuffle.
 
 Public API (analog of the reference's ``SingleRadixSort::execute`` /
@@ -16,7 +13,9 @@ rather than hard-coded drivers):
     sort(keys)                      -> sorted keys
     sort_pairs(keys, values)        -> (sorted keys, values permuted alongside)
     argsort(keys)                   -> stable argsort indices
+    sort_segments(keys2d)           -> every row sorted independently
     sort_sharded(keys, mesh, axis)  -> multi-device distributed sort
+                                       (vkradixsort_tpu.parallel.distributed)
 """
 
 from vkradixsort_tpu.ops.dispatch import argsort, sort, sort_pairs, sort_segments
@@ -25,8 +24,7 @@ from vkradixsort_tpu.ops.common import (
     encode_keys,
     sortable_dtype,
 )
-from vkradixsort_tpu.engine.config import SortConfig
-from vkradixsort_tpu.engine.context import TPUContext
+from vkradixsort_tpu.engine.context import DeviceContext
 
 __version__ = "0.1.0"
 
@@ -38,7 +36,6 @@ __all__ = [
     "encode_keys",
     "decode_keys",
     "sortable_dtype",
-    "SortConfig",
-    "TPUContext",
+    "DeviceContext",
     "__version__",
 ]

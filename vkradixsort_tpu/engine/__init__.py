@@ -1,7 +1,5 @@
-"""Runtime engine: device context, configuration, pass framework, tuning.
+"""Runtime engine: device discovery, meshes and the compile cache.
 
-TPU-native analog of the reference's ``engine/`` Vulkan runtime
-(reference engine/include/engine/core/*): GPUContext -> TPUContext,
-push constants / shader #defines -> SortConfig, Pass/ComputePass ->
-pass_.ComputePass, NUM_BLOCKS_PER_WORKGROUP tuning -> tuning tables.
+Analog of the reference's ``engine/`` Vulkan runtime
+(reference engine/include/engine/core/*): GPUContext -> DeviceContext.
 """

@@ -1,46 +1,34 @@
-"""TPUContext — device/mesh discovery and memory budgeting.
+"""DeviceContext — device/mesh discovery, and the compile-cache location.
 
-TPU-native analog of the reference's ``GPUContext``
+Analog of the reference's ``GPUContext``
 (engine/include/engine/core/GPUContext.h:15-111): where the reference
-manages instance/device/queues/command-pool lifecycle by hand, on TPU the
+manages instance/device/queues/command-pool lifecycle by hand, in JAX the
 runtime (PJRT) owns the device, so this context's job is discovery —
-enumerate chips, build sharding meshes (replacing the reference's
+enumerate devices and build sharding meshes (replacing the reference's
 interactive physical-device picker, GPUContext.cpp:152-195, with
-deterministic selection), and expose per-core VMEM/HBM budgets that the
-dispatcher uses to pick execution regimes.
+deterministic selection).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+import os
+import pathlib
 
 import jax
 import numpy as np
 
-
-# Conservative per-core VMEM budgets (bytes) by device kind. The fused path
-# sizes itself from this the way the reference sizes shared memory from
-# WORKGROUP_SIZE/RADIX_SORT_BINS (single_radixsort.comp:30-38).
-_VMEM_BYTES = {
-    "TPU v4": 16 * 2**20,
-    "TPU v5 lite": 64 * 2**20,
-    "TPU v5": 64 * 2**20,
-    "TPU v5p": 64 * 2**20,
-    "TPU v6 lite": 64 * 2**20,
-    "cpu": 16 * 2**20,  # interpret-mode tests
-}
+CACHE_ENV = "JAX_COMPILATION_CACHE_DIR"
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceInfo:
     kind: str
     num_devices: int
-    vmem_bytes: int
     platform: str
 
 
-class TPUContext:
+class DeviceContext:
     """Deterministic device discovery + mesh construction."""
 
     def __init__(self, devices=None):
@@ -55,18 +43,9 @@ class TPUContext:
     @property
     def info(self) -> DeviceInfo:
         d = self._devices[0]
-        kind = getattr(d, "device_kind", d.platform)
-        vmem = 16 * 2**20
-        # longest-prefix-first with break: "TPU v5" and "TPU v5p" overlap,
-        # and iterating in dict order would silently make the LAST match win
-        for prefix in sorted(_VMEM_BYTES, key=len, reverse=True):
-            if kind.lower().startswith(prefix.lower()):
-                vmem = _VMEM_BYTES[prefix]
-                break
         return DeviceInfo(
-            kind=kind,
+            kind=getattr(d, "device_kind", d.platform),
             num_devices=len(self._devices),
-            vmem_bytes=vmem,
             platform=d.platform,
         )
 
@@ -75,18 +54,19 @@ class TPUContext:
         devs = self._devices if num_devices is None else self._devices[:num_devices]
         return jax.sharding.Mesh(np.asarray(devs), (axis_name,))
 
-    def mesh_2d(
-        self, shape: tuple[int, int], axis_names: tuple[str, str] = ("host", "chip")
-    ) -> jax.sharding.Mesh:
-        """2-D (e.g. host x chip) mesh — DCN-major, ICI-minor ordering."""
-        n = shape[0] * shape[1]
-        if n > len(self._devices):
-            raise ValueError(f"mesh {shape} needs {n} devices, have {len(self._devices)}")
-        return jax.sharding.Mesh(
-            np.asarray(self._devices[:n]).reshape(shape), axis_names
-        )
 
+def use_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at a stable directory and
+    return it.
 
-@functools.lru_cache(maxsize=1)
-def default_context() -> TPUContext:
-    return TPUContext()
+    ``JAX_COMPILATION_CACHE_DIR``, when set, wins: JAX reads it itself and
+    nothing else is set. Otherwise the cache lives at ``<checkout>/.jax_cache``
+    — a fixed path, because the path is part of the cache key. Scripts call
+    this at start-up; importing the library sets nothing.
+    """
+    path = os.environ.get(CACHE_ENV)
+    if path:
+        return path
+    path = str(pathlib.Path(__file__).resolve().parents[2] / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

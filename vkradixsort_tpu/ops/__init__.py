@@ -1,13 +1,9 @@
-"""TPU sort kernels and orchestration.
+"""Sort paths and orchestration.
 
 Layer map (mirrors SURVEY.md §7):
   common     — key encodings, digit extraction, padding helpers (leaf)
   reference  — pure-jnp LSD radix sort, the in-package oracle (L0)
-  fused      — single-kernel in-VMEM Pallas sort, small-N regime (L1)
-  histogram  — tiled per-digit histogram kernel (L2, pass 1)
-  scan       — hierarchical exclusive scan over the histogram table (L2)
-  scatter    — stable rank-and-scatter distribution kernels (L2, pass 2)
-  bitonic    — in-VMEM vectorized sorting network (L2 building block)
-  tiled      — multi-pass large-N pipeline orchestration (L2/L3)
-  dispatch   — size/dtype-adaptive public API (L3)
+  segsort    — XLA sort wrappers in signed space: flat and segmented (L2)
+  tiled      — flat sort orchestration over segsort (L2/L3)
+  dispatch   — public API (L3)
 """

@@ -1,33 +1,26 @@
-"""Size/dtype-adaptive public sort API (SURVEY.md §7 L3).
+"""Public sort API (SURVEY.md §7 L3).
 
 The reference ships two separate hard-wired programs and documents "use
-single for N < ~10k, multi otherwise" (reference README.md:11-22). Here the
-regime split is a dispatcher: one public ``sort`` / ``sort_pairs`` /
-``argsort`` that routes across interchangeable engines:
+single for N < ~10k, multi otherwise" (reference README.md:11-22). Here one
+public ``sort`` / ``sort_pairs`` / ``argsort`` / ``sort_segments`` serves
+every size through one path:
 
   engine        analog of                      use
   ------------  -----------------------------  --------------------------------
-  "tiled"       multi_radixsort (production)   XLA sort in signed space; the
-                                               measured-fastest exact path at
-                                               every single-chip size (see
-                                               BENCHMARKS.md)
-  "bitonic"     single_radixsort (in-VMEM,     whole sort in ONE Pallas kernel;
-                one kernel launch)             ~2 s compile, 0.5-1 G keys/s
-  "fused"       single_radixsort (LSD radix    Pallas matmul-radix; structural
-                digit passes, one kernel)      parity path — ~10-20 s compile,
-                                               never routed implicitly
-  "samplesort"  multi_radixsort's histogram/   splitter partition + Pallas DMA
-                scatter pipeline, re-designed  placement (keys and stable kv);
-                around bulk DMA                basis of the distributed shuffle
-  "radix_tiled" multi_radixsort histogram +    explicit per-digit histogram/
-                scan + rank/scatter            scan/rank pipeline (Pallas)
-  "reference"   the CPU std::sort oracle       pure-jnp radix sort, any backend
+  "tiled"       multi_radixsort (production)   XLA's ``lax.sort`` in signed
+                                               space (ops/tiled.py ->
+                                               ops/segsort.py); the default
+                                               for every call on every
+                                               platform
+  "reference"   the CPU std::sort oracle       pure-jnp LSD radix sort; a test
+                                               oracle, reached only through an
+                                               explicit ``backend="reference"``
 
-``backend=None`` picks by measured routing: the XLA tiled path on TPU (it
-wins at every size we measured — narrow margins under 4k, 2-10x beyond),
-the jnp reference path elsewhere. The reference's single-vs-multi crossover
-(~10k keys on an RTX 3070) has no TPU analog single-chip: XLA compiles the
-small-N sort into one fused kernel already, which IS the "single" regime.
+On the GPU, XLA hands one- and two-operand integer sorts to CUB's radix sort
+(the reference's per-workgroup histogram / global scan / rank-and-scatter
+design, SURVEY.md §2-3) and sorts the rest with its own sort kernel. The
+small-N "single" regime needs no engine of its own: XLA already sorts a small
+array in one kernel.
 
 All entry points are jit-compatible, stable, and bitwise-exact vs np.sort.
 """
@@ -38,245 +31,53 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vkradixsort_tpu.engine.config import (
-    DEFAULT_CONFIG,
-    SortConfig,
-    grain_for,
-    route_for,
-    segseed_for,
-)
-from vkradixsort_tpu.ops import reference
+from vkradixsort_tpu.ops import reference, segsort, tiled
 from vkradixsort_tpu.ops.common import decode_keys, encode_keys, sortable_dtype
 
-ENGINES = (
-    "tiled",
-    "merge",
-    "bitonic",
-    "fused",
-    "samplesort",
-    "radix_tiled",
-    "reference",
-)
-
-# Largest n implicit routing may send to the merge engine AT ITS DEFAULT
-# GRAIN: the int32 split arithmetic is bound to 3*npad < 2^31
-# (ops/merge.sort_merge_planes), and npad rounds n up by at most one
-# default-max tile (2^21) plus the 2-tile slack. A coarse documented bound;
-# the router itself checks merge.fits_envelope at the ACTUAL grain, which
-# may be larger when config.tile / GRAIN_TABLE request oversized tiles.
-MERGE_MAX_N = ((1 << 31) // 3) - (3 << 21)
+ENGINES = ("tiled", "reference")
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+def _route(backend: str | None) -> str:
+    """The sort path: ``"tiled"`` unless the caller names the oracle."""
+    if backend is None:
+        return "tiled"
+    if backend not in ENGINES:
+        raise ValueError(f"unknown backend {backend!r}; pick from {ENGINES}")
+    return backend
 
 
-def _route(
-    n: int,
-    config: SortConfig,
-    backend: str | None,
-    op: str = "keys",
-    vals: tuple = (),
-    wide: bool = False,
-) -> str:
-    if backend is not None:
-        if backend not in ENGINES:
-            raise ValueError(f"unknown backend {backend!r}; pick from {ENGINES}")
-        return backend
-    if not _on_tpu():
-        return "reference"
-    path = route_for(op, n, wide)
-    if path == "merge":
-        from vkradixsort_tpu.ops import merge
-
-        # plane count: key planes (two for 64-bit keys) + one plane per 4
-        # payload bytes (8-byte payloads split in two). Stable kv no longer
-        # adds a position plane (the tie-break is synthesized in VMEM —
-        # merge.sort_merge_planes syn_tie) unless the A/B escape hatch
-        # forces the round-3 carried-plane composite.
-        import os
-
-        pos = 1 if os.environ.get("VKRS_MERGE_STABLE_POS") == "1" else 0
-        kp = 2 if wide else 1
-        vp = sum(v.dtype.itemsize // 4 for v in vals)
-        nplanes = {
-            "keys": kp,
-            "argsort": kp + 1,
-            "kv_unstable": kp + vp,
-        }.get(op, kp + pos + vp)
-        tr = _merge_tile_rows(config, op, n)
-        if any(v.dtype.itemsize not in (4, 8) for v in vals) or not (
-            # int32 plane positions + 3*npad split arithmetic, at the
-            # grain the engine would actually run (config.tile /
-            # GRAIN_TABLE may request tiles beyond the 2^21 default cap)
-            merge.fits_envelope(n, tr, nplanes)
-        ):
-            # outside the merge engine's envelope -> the always-valid XLA path
-            return "tiled"
-    return path
-
-
-def _check_f64_on_tpu(keys) -> None:
-    """float64 keys cannot be sorted exactly on TPU: the X64 rewriter
-    represents f64 as a float32 pair (<53-bit mantissa, measured 1-ulp
-    output perturbation) and f64<->u64 bitcasts are unimplemented, so
-    neither the native comparator nor the total-order encoding is exact.
-    A sort that perturbs its keys is worse than an error."""
-    if keys.dtype == jnp.float64 and _on_tpu():
-        raise TypeError(
-            "float64 keys are not supported on the TPU backend (f64 is "
-            "emulated as a float32 pair there and would be perturbed); "
-            "sort float64 on CPU, or use float32/int64/uint64 keys"
-        )
-
-
-def _sort_encoded(enc, vals: tuple, config: SortConfig, path: str, stable: bool = True):
-    """Sort already-encoded unsigned keys via the selected engine.
+def _sort_encoded(enc, vals: tuple, path: str):
+    """Sort already-encoded unsigned keys via the selected path.
 
     ``vals`` is a tuple of payload arrays riding along with the keys (empty
-    for keys-only). Returns ``(sorted_keys, sorted_vals_tuple)``. Engines
-    whose pipelines physically move a single payload plane (samplesort,
-    radix_tiled, fused) accept at most one; the XLA-sort-backed engines
-    (tiled, bitonic, reference) carry any number. ``stable=False`` is a
-    relaxation only the merge engine exploits: stable kv synthesizes its
-    tie-break plane in VMEM (merge.sort_merge_planes ``syn_tie`` — same
-    HBM traffic as unstable, one extra compare plane of VPU work per
-    stage), and the relaxation drops that synthetic plane — 254.0 ms vs
-    385.7 stable at 1e8 kv on v5e (BENCH_r04). Every other engine's
-    stable result is already a valid unstable answer.
+    for keys-only). Returns ``(sorted_keys, sorted_vals_tuple)``.
     """
     if path == "tiled":
-        from vkradixsort_tpu.ops import tiled
-
-        return tiled.sort_tiled(enc, vals, config)
-    if path == "merge":
-        from vkradixsort_tpu.ops import merge
-
-        mop = "kv" if vals else "keys"
-        return merge.sort_merge(
-            enc,
-            vals,
-            stable=stable,
-            tile_rows=_merge_tile_rows(config, mop, enc.shape[0]),
-            interpret=config.interpret,
-            segseed=segseed_for(
-                mop, enc.shape[0], wide=enc.dtype == jnp.uint64
-            ),
-        )
-    if path == "bitonic":
-        from vkradixsort_tpu.engine.context import default_context
-        from vkradixsort_tpu.ops import bitonic, segsort
-
-        # the whole padded array + working copies live in VMEM, so the
-        # device budget caps N PER RESIDENT PLANE: key planes (two for
-        # 64-bit keys), the position plane the network appends when payloads
-        # make it stable, and one plane per 4 payload bytes, each with ~4
-        # working copies of 4 bytes (the reference's analog bound is
-        # shared-memory sizing, single_radixsort.comp:30-38). 64 MB VMEM on
-        # v5e -> 4M keys-only, 1M u64-key kv.
-        kp = 2 if enc.dtype == jnp.uint64 else 1
-        vp = sum(v.dtype.itemsize // 4 for v in vals)
-        nplanes = kp + vp + (1 if vals else 0)  # vals imply stable (pos plane)
-        max_n = default_context().info.vmem_bytes // (16 * nplanes)
-        if enc.shape[0] > max_n:
-            raise ValueError(
-                "bitonic engine holds the whole (padded) array in VMEM; at "
-                f"{nplanes} resident plane(s) this device is bound to "
-                f"~{max_n:,} keys; use the 'tiled' or 'merge' engines for "
-                "larger arrays (BENCHMARKS.md)"
-            )
-        s = segsort.to_signed_order(enc)
-        out_s, out_v = bitonic.bitonic_sort_block(
-            s, vals, stable=bool(vals), interpret=config.interpret
-        )
-        return segsort.from_signed_order(out_s, enc.dtype), tuple(out_v)
-    if path == "fused":
-        from vkradixsort_tpu.ops import fused
-
-        _only_one_payload(path, vals)
-        if enc.shape[0] > config.fused_max_n:
-            raise ValueError(
-                f"fused engine accepts N <= config.fused_max_n "
-                f"({config.fused_max_n}); beyond that its matmul-scatter "
-                "cost and ~10-20 s/shape compile are prohibitive "
-                "(BENCHMARKS.md) — use 'tiled' or 'merge', or raise "
-                "config.fused_max_n explicitly"
-            )
-        out_k, out_v = fused.sort_fused(enc, vals[0] if vals else None, config)
-        return out_k, (out_v,) if vals else ()
-    if path == "samplesort":
-        from vkradixsort_tpu.ops import samplesort
-
-        _only_one_payload(path, vals)
-        tile = config.tile
-        if tile is None:
-            tile = grain_for("samplesort", "kv" if vals else "keys", enc.shape[0])
-        grain = {} if tile is None else dict(
-            tile_target=tile, bucket_target=tile
-        )
-        if not vals:
-            out = samplesort.sort_samplesort(
-                enc, interpret=config.interpret, **grain
-            )
-            return out, ()
-        out_k, out_v = samplesort.sort_pairs_samplesort(
-            enc, vals[0], interpret=config.interpret, **grain
-        )
-        return out_k, (out_v,)
-    if path == "radix_tiled":
-        from vkradixsort_tpu.ops import radix_tiled
-
-        _only_one_payload(path, vals)
-        out_k, out_v = radix_tiled.sort_radix_tiled(
-            enc,
-            vals[0] if vals else None,
-            tile=config.chunk,
-            interpret=config.interpret,
+        return tiled.sort_tiled(enc, vals)
+    if len(vals) <= 1:
+        out_k, out_v = reference._sort_encoded(
+            enc, vals[0] if vals else None, num_chunks=1
         )
         return out_k, (out_v,) if vals else ()
-    if path == "reference":
-        if len(vals) <= 1:
-            out_k, out_v = reference._sort_encoded(
-                enc, vals[0] if vals else None, num_chunks=1
-            )
-            return out_k, (out_v,) if vals else ()
-        # Multi-payload on the jnp oracle: one sort carrying the positions,
-        # then gather every payload (fine on CPU; the TPU default is tiled).
-        idx = jnp.arange(enc.shape[0], dtype=jnp.int32)
-        out_k, perm = reference._sort_encoded(enc, idx, num_chunks=1)
-        return out_k, tuple(jnp.take(v, perm) for v in vals)
-    raise ValueError(f"unknown sort path {path!r}")
+    # Multi-payload on the jnp oracle: one sort carrying the positions,
+    # then gather every payload.
+    idx = jnp.arange(enc.shape[0], dtype=jnp.int32)
+    out_k, perm = reference._sort_encoded(enc, idx, num_chunks=1)
+    return out_k, tuple(jnp.take(v, perm) for v in vals)
 
 
-def _merge_tile_rows(config: SortConfig, op: str, n: int) -> int | None:
-    """Merge-engine grain: explicit ``config.tile``, else the measured per-N
-    table (engine/config.GRAIN_TABLE — the NBPW-optima analog), converted
-    from elements-per-tile to VMEM rows of 2048 (floored to a power of two).
-    None lets the engine apply its VMEM-budget default."""
-    from vkradixsort_tpu.ops import merge
-
-    tile = config.tile
-    if tile is None:
-        tile = grain_for("merge", op, n)
-    return merge.grain_to_tile_rows(tile)
+def _encode(keys, descending: bool):
+    enc = encode_keys(keys)
+    return ~enc if descending else enc
 
 
-def _only_one_payload(path: str, vals: tuple) -> None:
-    if len(vals) > 1:
-        raise NotImplementedError(
-            f"engine {path!r} moves a single payload plane; pass one values "
-            "array, or use the 'tiled'/'bitonic'/'reference' engines for "
-            "multi-payload sorts"
-        )
+def _decode(out, dtype, descending: bool):
+    return decode_keys(~out if descending else out, dtype)
 
 
 def sort(
     keys: jnp.ndarray,
     *,
-    config: SortConfig = DEFAULT_CONFIG,
     backend: str | None = None,
     descending: bool = False,
 ) -> jnp.ndarray:
@@ -298,29 +99,21 @@ def sort(
     """
     if keys.ndim == 2:
         # np.sort-style batched semantics: every row sorts independently via
-        # the segment engine (backend selection does not apply there)
+        # the segment path (backend selection does not apply there)
         if backend is not None:
             raise ValueError("2-D keys route to sort_segments; backend= does not apply")
         return sort_segments(keys, descending=descending)
     if keys.ndim != 1:
         raise ValueError(f"sort expects 1-D or 2-D keys, got shape {keys.shape}")
-    _check_f64_on_tpu(keys)
-    wide = sortable_dtype(keys.dtype) == jnp.dtype(jnp.uint64)
-    path = _route(keys.shape[0], config, backend, op="keys", wide=wide)
-    enc = encode_keys(keys)
-    if descending:
-        enc = ~enc
-    out, _ = _sort_encoded(enc, (), config, path)
-    if descending:
-        out = ~out
-    return decode_keys(out, keys.dtype)
+    path = _route(backend)
+    out, _ = _sort_encoded(_encode(keys, descending), (), path)
+    return _decode(out, keys.dtype, descending)
 
 
 def sort_pairs(
     keys: jnp.ndarray,
     values: jnp.ndarray,
     *,
-    config: SortConfig = DEFAULT_CONFIG,
     backend: str | None = None,
     descending: bool = False,
     stable: bool = True,
@@ -329,22 +122,13 @@ def sort_pairs(
 
     ``values`` may be one array or a tuple/list of arrays (all length-N):
     every payload plane is permuted by the same stable key order in ONE
-    sort. On TPU this is the only fast way to carry several payloads — a
-    post-hoc ``values[argsort(keys)]`` gather runs at ~81 M elements/s at
-    1e8 (BENCHMARKS.md) while the carried sort runs at 150-200 M pairs/s.
-    Returns ``(sorted_keys, values_like)`` with the same container shape.
+    sort. Returns ``(sorted_keys, values_like)`` with the same container
+    shape.
 
     ``stable=False`` relaxes the tie order (any permutation of equal keys
-    is a valid result) and routes through its own measured table
-    (ROUTE_TABLE["kv_unstable"]): above the crossover, the merge engine
-    runs WITHOUT the synthetic tie-break plane stable kv carries in VMEM
-    (same HBM traffic, one less compare plane of VPU work — 254.0 ms =
-    394 M pairs/s vs 385.7 ms stable at 1e8 on v5e, no x64 needed,
-    multi-payload capable); below it, 32-bit-encoded keys with
-    ONE 4-byte payload under jax_enable_x64 pack into a single u64 for
-    the direct i64 sort (847 vs 647 M pairs/s at 1e6, 698 vs 516 at 4e6,
-    463 vs 329 at 1.6e7 against the stable carry). Ineligible
-    configurations simply run the stable path (also a valid unstable
+    is a valid result). Under ``jax_enable_x64``, 32-bit-encoded keys with
+    ONE 4-byte payload then pack into a single u64 for a keys-only sort;
+    every other configuration runs the stable path (also a valid unstable
     answer).
     """
     multi = isinstance(values, (tuple, list))
@@ -358,75 +142,39 @@ def sort_pairs(
             "sort_pairs expects matching 1-D arrays, got "
             f"{keys.shape} / {[v.shape for v in vals]}"
         )
-    _check_f64_on_tpu(keys)
-    wide = sortable_dtype(keys.dtype) == jnp.dtype(jnp.uint64)
-    # unstable calls route through their own measured table rows
-    # ("kv_unstable"): the relaxation drops the synthetic in-VMEM tie
-    # plane stable kv compares with — 254.0 ms vs the packed-u64 path's
-    # 341.8 at 1e8 on v5e (BENCHMARKS.md)
-    path = _route(
-        keys.shape[0], config, backend,
-        op="kv" if stable else "kv_unstable", vals=vals, wide=wide,
-    )
-    if not stable and path == "merge":
-        enc = encode_keys(keys)
-        if descending:
-            enc = ~enc
-        out_k, out_vs = _sort_encoded(enc, vals, config, "merge", stable=False)
-        if descending:
-            out_k = ~out_k
-        return decode_keys(out_k, keys.dtype), (
-            type(values)(out_vs) if multi else out_vs[0]
-        )
+    path = _route(backend)
+    enc = _encode(keys, descending)
     if (
         not stable
         and not multi
-        # routed-tiled or explicitly-tiled below the merge crossover: the
-        # packed-u64 direct i64 sort (341 ms at 1e8, 1.3-1.4x the stable
-        # carry at every size) is the fastest non-merge unstable path
         and path == "tiled"
         and jax.config.jax_enable_x64
         and sortable_dtype(keys.dtype) == jnp.dtype(jnp.uint32)
         and vals[0].dtype.itemsize == 4
     ):
-        from vkradixsort_tpu.ops import segsort
-
-        enc = encode_keys(keys)
-        if descending:
-            enc = ~enc
         vbits = vals[0].view(jnp.uint32)
         packed = (enc.astype(jnp.uint64) << np.uint64(32)) | vbits.astype(jnp.uint64)
-        sp = segsort.sort_flat(packed, stable=False)
+        sp = segsort.sort_flat(packed)
         out_k = (sp >> np.uint64(32)).astype(jnp.uint32)
-        if descending:
-            out_k = ~out_k
         out_v = (sp & np.uint64(0xFFFFFFFF)).astype(jnp.uint32).view(vals[0].dtype)
-        return decode_keys(out_k, keys.dtype), out_v
-    enc = encode_keys(keys)
-    if descending:
-        enc = ~enc
-    out_k, out_vs = _sort_encoded(enc, vals, config, path)
-    if descending:
-        out_k = ~out_k
-    keys_out = decode_keys(out_k, keys.dtype)
+        return _decode(out_k, keys.dtype, descending), out_v
+    out_k, out_vs = _sort_encoded(enc, vals, path)
+    keys_out = _decode(out_k, keys.dtype, descending)
     return keys_out, (type(values)(out_vs) if multi else out_vs[0])
 
 
 def argsort(
     keys: jnp.ndarray,
     *,
-    config: SortConfig = DEFAULT_CONFIG,
     backend: str | None = None,
     descending: bool = False,
 ) -> jnp.ndarray:
     """Stable argsort indices (uint32 for N < 2^32).
 
-    Fast path for 32-bit-encoded keys on the tiled engine (needs
-    jax_enable_x64): pack ``(encoded_key << 32) | position`` into one u64
-    and run the keys-only direct i64 sort — all packed keys are distinct,
-    so an UNSTABLE sort is stable by construction. Measured on v5e at 1e8:
-    340 ms vs 474 ms for the stable two-operand carry (1.39x,
-    BENCHMARKS.md).
+    Under ``jax_enable_x64``, 32-bit-encoded keys pack
+    ``(encoded_key << 32) | position`` into one u64 and run a keys-only
+    sort: all packed keys are distinct, so an UNSTABLE sort is stable by
+    construction. Otherwise the positions ride a stable key-value sort.
     """
     if keys.ndim == 2:
         if backend is not None:
@@ -439,8 +187,7 @@ def argsort(
     if keys.ndim != 1:
         raise ValueError(f"argsort expects 1-D or 2-D keys, got shape {keys.shape}")
     n = keys.shape[0]
-    wide = sortable_dtype(keys.dtype) == jnp.dtype(jnp.uint64)
-    path = _route(n, config, backend, op="argsort", wide=wide)
+    path = _route(backend)
     if (
         path == "tiled"
         and jax.config.jax_enable_x64
@@ -449,37 +196,14 @@ def argsort(
         # then discarding for 64-bit keys would waste a full-array pass
         and sortable_dtype(keys.dtype) == jnp.dtype(jnp.uint32)
     ):
-        from vkradixsort_tpu.ops import segsort
-
-        enc = encode_keys(keys)
-        if descending:
-            enc = ~enc
+        enc = _encode(keys, descending)
         idx = jnp.arange(n, dtype=jnp.uint64)
         packed = (enc.astype(jnp.uint64) << np.uint64(32)) | idx
-        sp = segsort.sort_flat(packed, stable=False)
+        sp = segsort.sort_flat(packed)
         return (sp & np.uint64(0xFFFFFFFF)).astype(jnp.uint32)
-    if path == "merge":
-        from vkradixsort_tpu.ops import merge
-
-        tr = _merge_tile_rows(config, "argsort", n)
-        # envelope check at the actual grain (explicit backend="merge"
-        # outside it falls through to sort_pairs, where the engine raises
-        # its documented refusal; implicit routing never reaches here
-        # outside the envelope — _route already falls back to tiled)
-        if merge.fits_envelope(n, tr, 3 if wide else 2):
-            # position-plane fast path: the original-position compare plane
-            # that makes the network stable IS the answer, so argsort costs
-            # one plane less than the equivalent kv carry
-            enc = encode_keys(keys)
-            if descending:
-                enc = ~enc
-            return merge.argsort_merge(
-                enc, tile_rows=tr, interpret=config.interpret,
-                segseed=segseed_for("argsort", n, wide=wide),
-            )
     idx_dtype = jnp.uint32 if n < (1 << 32) else jnp.uint64
     idx = jnp.arange(n, dtype=idx_dtype)
-    _, perm = sort_pairs(keys, idx, config=config, backend=backend, descending=descending)
+    _, perm = sort_pairs(keys, idx, backend=backend, descending=descending)
     return perm
 
 
@@ -491,18 +215,9 @@ def sort_segments(
 ):
     """Sort every row of a 2-D array independently (batched segment sort).
 
-    This is the hardware's sweet spot: TPU runs the per-segment networks
-    lockstep across rows entirely in VMEM — measured ~5 G keys/s at segment
-    width 2048 on v5e, ~9x the flat large-N rate (BENCHMARKS.md). The rate
-    is a REGIME, not a constant: it falls with row width as the lockstep
-    networks leave VMEM — 3.2 G/s at width 16k, ~1 G/s at 195k, 845 M/s at
-    1.5M (BENCHMARKS.md primitive table) — converging on the flat XLA sort
-    rate. Rows stay on one ``lax.sort`` here at every width: a per-row merge
-    route would pay an extra compare plane (~310 M/s — the measured 2-plane
-    rate) and loses to the batched sort at every measured width. The
-    reference has no segmented entry point; it falls naturally out of the
-    TPU-first design and is the building block the distributed shuffle and
-    samplesort stages use internally.
+    All rows go through ONE batched ``lax.sort`` along the last axis. The
+    reference has no segmented entry point; it is the building block of
+    per-partition sorts.
 
     Stable per row when ``values`` ride along; like :func:`sort_pairs`,
     ``values`` may be one 2-D array or a tuple/list of payload planes.
@@ -511,20 +226,10 @@ def sort_segments(
     """
     if keys.ndim != 2:
         raise ValueError(f"sort_segments expects 2-D keys, got {keys.shape}")
-    _check_f64_on_tpu(keys)
-    from vkradixsort_tpu.ops import segsort
-
     multi = isinstance(values, (tuple, list))
     vals = () if values is None else (tuple(values) if multi else (values,))
-    enc = encode_keys(keys)
-    if descending:
-        enc = ~enc
-    s = segsort.to_signed_order(enc)
-    out = jax.lax.sort((s,) + vals, dimension=1, is_stable=bool(vals), num_keys=1)
-    out_enc = segsort.from_signed_order(out[0], enc.dtype)
-    if descending:
-        out_enc = ~out_enc
-    out_k = decode_keys(out_enc, keys.dtype)
+    out_enc, out_vs = segsort.sort_segments(_encode(keys, descending), vals)
+    out_k = _decode(out_enc, keys.dtype, descending)
     if values is None:
         return out_k
-    return out_k, (type(values)(out[1:]) if multi else out[1])
+    return out_k, (type(values)(out_vs) if multi else out_vs[0])

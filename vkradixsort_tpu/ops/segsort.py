@@ -1,14 +1,13 @@
-"""Sort primitives built on XLA's native TPU sort, in sign-flipped int space.
+"""Sort primitives built on XLA's native sort, in sign-flipped int space.
 
-Measured on TPU v5e (see BENCHMARKS.md): XLA's sort runs its fast path on
-SIGNED integers, and batched segment sorts are dramatically faster per key
-than one flat sort (seg=2048: ~5.0G keys/s at 1e8 total, flat 1e8:
-0.56G). These wrappers put encoded (unsigned) keys into order-isomorphic
-int32/int64 space and expose flat and segmented sorts. 64-bit keys-only
-sorts go through one direct i64 sort; 64-bit key-value sorts use an LSD
-radix structure of two stable passes over 32-bit digits (the reference's
-ITERATIONS 4<->8 dichotomy, single_radixsort.comp:14, collapses to 1<->2
-passes with 32-bit digits).
+These wrappers put encoded (unsigned) keys into order-isomorphic
+int32/int64 space and expose flat and segmented sorts. The signed mapping
+dates from a backend whose sort was fast only on signed integers; it is
+exact on every backend, and whether it costs anything on the GPU is an open
+measurement. 64-bit keys-only sorts go through one direct i64 sort; 64-bit
+key-value sorts use an LSD radix structure of two stable passes over 32-bit
+digits (the reference's ITERATIONS 4<->8 dichotomy,
+single_radixsort.comp:14, collapses to 1<->2 passes with 32-bit digits).
 """
 
 from __future__ import annotations
@@ -57,12 +56,8 @@ def sort_flat_u32(enc: jnp.ndarray, values: tuple = (), stable: bool = False):
 
 def sort_flat_u64(enc: jnp.ndarray, values: tuple = (), stable: bool = False):
     """uint64 keys: direct i64 sort when keys-only, else two chained stable
-    32-bit-digit passes (LSD radix).
-
-    Measured on v5e at 1e8: the direct i64 path runs 339 ms
-    (benchmarks/results/v5e_u64_keys_uniform.csv) vs ~950 ms for the
-    two-pass route, so keys-only takes the direct path; with payloads the
-    split passes win because each pass carries narrower operands.
+    32-bit-digit passes (LSD radix), each carrying narrower operands than
+    one 64-bit-key carried sort would.
     """
     if not values:
         return sort_flat(enc, stable=stable), ()
@@ -77,11 +72,9 @@ def sort_flat_u64(enc: jnp.ndarray, values: tuple = (), stable: bool = False):
 
 
 def sort_segments(enc2d: jnp.ndarray, values2d: tuple = (), stable: bool = False):
-    """Independent ascending sort of every row of a 2-D uint32 array.
-
-    The workhorse primitive: XLA batched sort at segment width 1024-2048
-    runs at ~3-4G keys/s on v5e. Used by the distributed shuffle (per-shard
-    chunk presort) and the block-sort stages.
+    """Independent ascending sort of every row of a 2-D uint32/uint64
+    array, as one batched XLA sort along the last axis; stable whenever
+    payload planes ride along. Backs the public ``sort_segments``.
     """
     ops = jax.lax.sort(
         (to_signed_order(enc2d),) + tuple(values2d),

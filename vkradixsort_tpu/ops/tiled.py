@@ -1,35 +1,25 @@
-"""Large-N sort path — the multi_radixsort analog (SURVEY.md §7 L2/L3).
+"""Flat sort path — the multi_radixsort analog (SURVEY.md §7 L2/L3).
 
 The reference's large-N regime tiles the array over many workgroups
 coordinated through a global histogram table (reference
-multiradixsort/resources/shaders/*.comp). On TPU the same regime is served
-by two interchangeable backends:
-
-  * ``sort_tiled`` (default): XLA's native sort driven in sign-flipped int
-    space (ops/segsort.py) — one direct sort for keys-only (u32 and u64
-    alike); a 2-stable-pass LSD radix over 32-bit digits for 64-bit
-    key-value sorts. Measured fastest correct large-N path on v5e (flat
-    1e8 u32: 560M keys/s vs the reference GPU's 52.7M keys/s —
-    BENCHMARKS.md).
-  * ``ops/radix_tiled.py``: the explicit histogram -> hierarchical scan ->
-    stable rank-and-scatter pipeline with Pallas kernels, structurally
-    mirroring the reference's two-kernel-per-pass design. Slower on current
-    hardware because TPU lacks a fast global scatter (see BENCHMARKS.md),
-    but it is the component-parity implementation and the basis of the
-    distributed shuffle.
+multiradixsort/resources/shaders/*.comp). Here XLA's native sort serves that
+regime, driven in sign-flipped int space (ops/segsort.py): one direct sort
+for keys-only (u32 and u64 alike), one carried sort for u32 key-value, and
+two stable passes over 32-bit digits for 64-bit key-value sorts. On the GPU,
+XLA lowers the one- and two-operand integer sorts to CUB's radix sort, which
+is the reference's histogram / scan / rank-and-scatter pipeline.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-from vkradixsort_tpu.engine.config import DEFAULT_CONFIG, SortConfig
 from vkradixsort_tpu.ops import segsort
 
 
-def sort_tiled(enc: jnp.ndarray, vals: tuple, config: SortConfig = DEFAULT_CONFIG):
-    """Sort encoded (unsigned) keys + any number of payload planes at HBM
-    scale. Returns ``(sorted_keys, sorted_vals_tuple)``."""
+def sort_tiled(enc: jnp.ndarray, vals: tuple):
+    """Sort encoded (unsigned) keys + any number of payload planes.
+    Returns ``(sorted_keys, sorted_vals_tuple)``."""
     if enc.dtype == jnp.uint32:
         return segsort.sort_flat_u32(enc, vals, stable=bool(vals))
     if enc.dtype == jnp.uint64:

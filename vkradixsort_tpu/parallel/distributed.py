@@ -1,4 +1,4 @@
-"""Multi-chip / multi-host distributed sort (SURVEY.md §7 L5 — a NEW layer,
+"""Multi-device / multi-host distributed sort (SURVEY.md §7 L5 — a NEW layer,
 absent in the single-GPU reference, mandated by BASELINE.json's north star).
 
 Algorithm — MSD-first range partitioning by sampled splitters with an
@@ -13,8 +13,8 @@ all-to-all key/value shuffle over the mesh interconnect:
      searchsorted; bucket p of every shard is a contiguous run,
   4. runs are placed in a (P, cap) sentinel-padded send buffer (static
      shapes; cap = slack * n_local / P) and exchanged with ONE
-     ``lax.all_to_all`` over the mesh axis — ICI for intra-host axes,
-     DCN for the host axis,
+     ``lax.all_to_all`` over the mesh axis (NCCL over NVLink between the
+     GPUs of one host, over the network between hosts),
   5. each shard stably sorts its received buffer; sentinels (key-max)
      sink to the tail. Concatenating shards (minus sentinels) is the
      exact stable global sort.
@@ -31,7 +31,6 @@ check it (it is a traced value) and retry with a larger ``slack`` /
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence
 
 import jax
@@ -50,9 +49,12 @@ P = jax.sharding.PartitionSpec
 
 
 def _quantile_positions(n: int, m: int) -> jnp.ndarray:
-    """m regular sample positions (bucket midpoints) in [0, n)."""
-    pos = (jnp.arange(m, dtype=jnp.int32) * n) // m + n // (2 * m)
-    return jnp.minimum(pos, n - 1)
+    """m regular sample positions (bucket midpoints) in [0, n).
+
+    Computed on the host in int64: both sizes are static, and ``i * n``
+    overflows int32 once a shard holds more than 2^31 / m elements."""
+    pos = (np.arange(m, dtype=np.int64) * n) // m + n // (2 * m)
+    return jnp.asarray(np.minimum(pos, n - 1), jnp.int32)
 
 
 def _global_quantiles(local_k, local_g, axis_name, num_shards):
@@ -122,7 +124,6 @@ def _partition_fn(
     oversample: int,
     chunks: int = 1,
     gdt=jnp.int32,
-    local_sort=None,
 ):
     """The per-shard shard_map body. Operates on encoded uint32/64 keys.
 
@@ -140,10 +141,8 @@ def _partition_fn(
     Local shards are padded internally to a multiple of P*chunks with
     (key-sentinel, gidx-max) pairs, which sort to every chunk's suffix and
     are clipped out of the send stage — callers owe no P^2 or chunk
-    divisibility (round-1 VERDICT missing #4).
+    divisibility.
     """
-
-    lsort = local_sort if local_sort is not None else _idx_sort
 
     def fn(enc, *values):
         n = enc.shape[0]
@@ -201,7 +200,7 @@ def _partition_fn(
             # gidx-max makes padding sort strictly AFTER every real pair
             # inside a sentinel-key run, so such pairs keep their payloads.
             # n_real = valid prefix length (alignment pads sort to the tail).
-            kc, gc, vc = lsort(
+            kc, gc, vc = _idx_sort(
                 chunk(enc, c), chunk(gidx, c), [chunk(v, c) for v in values]
             )
             n_real = (n_chunk - jnp.sum(gc == gmax)).astype(jnp.int32)
@@ -270,107 +269,11 @@ def _partition_fn(
             jnp.concatenate([rv[1 + i].reshape(-1) for rv in recv_vss])
             for i in range(len(values))
         ]
-        out_k, out_gidx, out_vs = lsort(all_k, all_g, all_vs)
+        out_k, out_gidx, out_vs = _idx_sort(all_k, all_g, all_vs)
         count = jnp.sum(a2a(lens_total))
         return (out_k, count.reshape(1), overflow.reshape(1)) + tuple(out_vs)
 
     return fn
-
-
-def _idx_sort_merge(enc, gidx, values: Sequence[jnp.ndarray], interpret):
-    """The same (key, original-position) total order as :func:`_idx_sort`,
-    run on the merge engine (ops/merge): in-VMEM tile sorts + the
-    run-doubling merge ladder, with the position carry as the tiebreak
-    compare plane and payloads as carry planes. Selected for the local
-    phases when their per-shard sizes sit in the engine's measured winning
-    envelope (engine/config.ROUTE_TABLE["dist_local"])."""
-    from vkradixsort_tpu.ops import merge
-
-    if enc.dtype == jnp.uint32:
-        kp = [merge._u32_signed(enc)]
-    else:
-        kp = [
-            merge._u32_signed((enc >> np.uint64(32)).astype(jnp.uint32)),
-            merge._u32_signed((enc & np.uint64(0xFFFFFFFF)).astype(jnp.uint32)),
-        ]
-    from vkradixsort_tpu.engine.config import grain_for, segseed_for
-
-    planes = kp + [gidx] + [v.view(jnp.int32) for v in values]
-    # same measured tuning as the public stable-kv path: the local phase IS
-    # a stable multi-plane carry at per-shard scale
-    tr = merge.grain_to_tile_rows(grain_for("merge", "kv", enc.shape[0]))
-    out = merge.sort_merge_planes(
-        planes,
-        len(kp) + 1,
-        interpret=interpret,
-        segseed=segseed_for("kv", enc.shape[0], wide=enc.dtype == jnp.uint64),
-        **({} if tr is None else dict(tile_rows=tr)),
-    )
-    if enc.dtype == jnp.uint32:
-        out_k = out[0].view(jnp.uint32) ^ np.uint32(0x80000000)
-    else:
-        hi = (out[0].view(jnp.uint32) ^ np.uint32(0x80000000)).astype(jnp.uint64)
-        lo = (out[1].view(jnp.uint32) ^ np.uint32(0x80000000)).astype(jnp.uint64)
-        out_k = (hi << np.uint64(32)) | lo
-    nk = len(kp)
-    return (
-        out_k,
-        out[nk],
-        [o.view(v.dtype) for o, v in zip(out[nk + 1 :], values)],
-    )
-
-
-def _pick_local_engine(local_engine, gdt, vals, n_chunk, n_sort_max, nck):
-    """Static (trace-time) engine choice for the shard-local sort phases.
-
-    ``None`` consults ROUTE_TABLE["dist_local"] at the per-shard chunk size
-    — but only on TPU and inside the merge engine's envelope (int32
-    position carries, 4-byte payload planes, and the int32 split-arithmetic
-    size bound at ``n_sort_max``); everything else runs the always-valid
-    XLA composite sort. ``n_sort_max`` is the LARGEST array the local sort
-    ever sees — the final received-buffer sort of ~slack * n_local
-    elements, ``overlap_chunks`` times the chunk size, which is where the
-    envelope actually binds. Explicit "merge" is honored on any backend
-    (Pallas interpret mode off-TPU — the CPU-mesh test path)."""
-    from vkradixsort_tpu.ops import merge
-
-    from vkradixsort_tpu.engine.config import grain_for
-
-    nplanes = nck + 1 + len(vals)  # key planes + position carry + payloads
-    # the envelope binds at the LARGEST local sort, at the grain that sort
-    # would actually run (the GRAIN_TABLE row _idx_sort_merge picks there)
-    tr_max = merge.grain_to_tile_rows(grain_for("merge", "kv", n_sort_max))
-    outside = (
-        gdt != jnp.dtype(jnp.int32)
-        or any(np.dtype(v.dtype).itemsize != 4 for v in vals)
-        or not merge.fits_envelope(n_sort_max, tr_max, nplanes)
-    )
-    if local_engine is not None:
-        if local_engine not in ("xla", "merge"):
-            raise ValueError(
-                f"local_engine must be 'xla' or 'merge', got {local_engine!r}"
-            )
-        if local_engine == "merge" and outside:
-            raise ValueError(
-                "local_engine='merge' needs int32 position carries, 4-byte "
-                "payload planes, and a receive-buffer sort inside the merge "
-                f"engine's int32 split envelope (got {n_sort_max} elements); "
-                "use 'xla' here"
-            )
-        return local_engine
-    if outside:
-        return "xla"
-    try:
-        if jax.default_backend() != "tpu":
-            return "xla"
-    except Exception:
-        return "xla"
-    from vkradixsort_tpu.engine.config import route_for
-
-    # nck == 2 means two lexicographic key planes = 64-bit keys, whose
-    # measured crossover sits a decade lower (config "dist_local64" rows)
-    eng = route_for("dist_local", n_chunk, wide=nck == 2)
-    return "merge" if eng == "merge" else "xla"
 
 
 def _idx_sort(enc, gidx, values: Sequence[jnp.ndarray]):
@@ -405,7 +308,6 @@ def sort_sharded(
     descending: bool = False,
     overlap_chunks: int = 1,
     gidx_dtype=None,
-    local_engine: str | None = None,
 ):
     """Distributed stable sort of a 1-D array sharded over ``axis_name``.
 
@@ -420,7 +322,7 @@ def sort_sharded(
     along unchanged and may be one array or a tuple/list of payload planes
     (``padded_values`` matches the container shape). ``descending=True``
     reverses the key order with ties kept in original input order, via the
-    same encoded-key bit-complement as the single-chip API.
+    same encoded-key bit-complement as the single-device API.
 
     ``overlap_chunks=K > 1`` selects the software-pipelined body: each shard
     is split into K strided chunks and the all-to-all of chunk k-1 runs
@@ -435,23 +337,11 @@ def sort_sharded(
     other grain (interleave blocks, chunk splits) is padded internally.
     Global positions carry as int32 below N = 2^31 and as int64 beyond
     (requires x64); ``gidx_dtype=jnp.int64`` opts in explicitly.
-
-    ``local_engine`` selects the shard-local sort phases: "xla" (composite
-    lax.sort), "merge" (the ops/merge ladder — Pallas interpret mode off
-    TPU), or None to consult the measured routing table
-    (engine/config.ROUTE_TABLE["dist_local"]) at the per-shard chunk size.
     """
     multi = isinstance(values, (tuple, list))
     vals = () if values is None else (tuple(values) if multi else (values,))
     num_shards = mesh.shape[axis_name]
     n = keys.shape[0]
-    if keys.dtype == jnp.float64 and any(
-        d.platform == "tpu" for d in mesh.devices.flat
-    ):
-        raise TypeError(
-            "float64 keys are not supported on TPU meshes (f64 is emulated "
-            "as a float32 pair there and would be perturbed)"
-        )
     if n % num_shards:
         raise ValueError(
             f"N={n} must be a multiple of P={num_shards} so the input can "
@@ -461,9 +351,8 @@ def sort_sharded(
     if overlap_chunks < 1:
         raise ValueError(f"overlap_chunks must be >= 1, got {overlap_chunks}")
     # Position-carry dtype: int32 covers global positions below 2^31; larger
-    # sorts (the pod-scale north star at 1e8 keys/chip x hundreds of chips)
-    # carry int64 automatically. Opt in explicitly via gidx_dtype to test
-    # the wide path at small sizes.
+    # sorts carry int64 automatically. Opt in explicitly via gidx_dtype to
+    # test the wide path at small sizes.
     gdt = jnp.dtype(gidx_dtype) if gidx_dtype is not None else (
         jnp.dtype(jnp.int64) if n >= (1 << 31) - 1 else jnp.dtype(jnp.int32)
     )
@@ -492,26 +381,7 @@ def sort_sharded(
     grain = num_shards * overlap_chunks
     n_local_padded = ((n // num_shards + grain - 1) // grain) * grain
     cap = int(slack * n_local_padded / (overlap_chunks * num_shards)) + 64
-    eng = _pick_local_engine(
-        local_engine, gdt, vals,
-        n_local_padded // overlap_chunks,
-        # the final received-buffer sort is the largest local sort:
-        # C chunks x P shards x per-bucket capacity (see _partition_fn)
-        overlap_chunks * num_shards * cap,
-        2 if enc.dtype == jnp.uint64 else 1,
-    )
-    if eng == "merge":
-        try:
-            interp = jax.default_backend() != "tpu"
-        except Exception:
-            interp = True
-        lsort = functools.partial(_idx_sort_merge, interpret=interp)
-    else:
-        lsort = _idx_sort
-    fn = _partition_fn(
-        axis_name, num_shards, cap, oversample, overlap_chunks, gdt,
-        local_sort=lsort,
-    )
+    fn = _partition_fn(axis_name, num_shards, cap, oversample, overlap_chunks, gdt)
     spec = P(axis_name)
     out_specs = (spec, spec, spec) + tuple(spec for _ in vals)
     mapped = jax.shard_map(
@@ -568,7 +438,6 @@ def sort_distributed(
     descending: bool = False,
     overlap_chunks: int = 1,
     gidx_dtype=None,
-    local_engine: str | None = None,
 ):
     """Host-driving convenience around :func:`sort_sharded`: runs the
     distributed sort, checks the overflow flag, and retries with doubled
@@ -591,7 +460,6 @@ def sort_distributed(
             descending=descending,
             overlap_chunks=overlap_chunks,
             gidx_dtype=gidx_dtype,
-            local_engine=local_engine,
         )
         # jnp.any reduces to a replicated scalar, fetchable on every host
         if not bool(jnp.any(res[2])):

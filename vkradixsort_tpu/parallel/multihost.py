@@ -1,28 +1,24 @@
-"""Multi-host (DCN) support for the distributed sort.
+"""Multi-host support for the distributed sort.
 
 The reference is strictly single-process/single-GPU (SURVEY.md §1); this
-layer is the north-star extension to multi-host TPU slices (BASELINE.json:
-">=70% 1->4 host scaling efficiency on a v5p slice"). It is deliberately
-thin: JAX's runtime owns process bootstrap and cross-host collectives, so
-all this module does is
+layer extends the distributed sort to several GPU hosts, each with one or
+more cards. It is deliberately thin: JAX's runtime owns process bootstrap
+and cross-host collectives, so all this module does is
 
   * initialize the distributed runtime exactly once per process
-    (``ensure_initialized`` — a no-op under a single process or when the
-    TPU runtime already bootstrapped via megascale env vars),
-  * build the canonical 1-D global mesh over every chip of every host,
-    DCN-major so that ``sort_sharded``'s single all-to-all crosses DCN the
-    minimum number of times,
+    (``ensure_initialized`` — a no-op under a single process),
+  * build the canonical 1-D global mesh over every device of every host,
+    host-major so each host's cards sit contiguously on the axis,
   * assemble a global sharded array from per-host shards
     (``global_array_from_host_data``).
 
 ``parallel.distributed.sort_sharded`` then works unchanged over the global
-mesh: XLA lowers the same ``lax.all_to_all``/``all_gather`` to ICI within a
-host and DCN across hosts.
+mesh: XLA hands the same ``lax.all_to_all``/``all_gather`` to NCCL, over
+NVLink within a host and over the network between hosts.
 
-Cannot be exercised on this single-host dev box; the logic that CAN be
-tested without a pod (splitters, shuffle, stability) runs in CI on a
-virtual 8-device CPU mesh (tests/test_distributed.py), exactly as SURVEY.md
-§4 prescribes.
+The logic that can be tested without a cluster (splitters, shuffle,
+stability) runs on a virtual CPU mesh (tests/test_distributed.py), exactly
+as SURVEY.md §4 prescribes.
 """
 
 from __future__ import annotations
@@ -42,9 +38,10 @@ def ensure_initialized(
 ) -> bool:
     """Initialize ``jax.distributed`` once; returns True if multi-process.
 
-    With no arguments, relies on JAX's auto-detection (TPU pod metadata /
-    megascale env). Explicit arguments follow ``jax.distributed.initialize``.
-    Safe to call repeatedly and from single-process runs.
+    Initializes when a coordinator is given, as an argument or through
+    ``JAX_COORDINATOR_ADDRESS``; explicit arguments follow
+    ``jax.distributed.initialize``. Safe to call repeatedly and from
+    single-process runs.
     """
     global _INITIALIZED
     # Decide from args/env BEFORE touching any jax backend query:
@@ -55,7 +52,6 @@ def ensure_initialized(
     want_multi = (
         coordinator_address is not None
         or os.environ.get("JAX_COORDINATOR_ADDRESS")
-        or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
     )
     if want_multi and not _INITIALIZED:
         try:
@@ -65,8 +61,8 @@ def ensure_initialized(
                 process_id=process_id,
             )
         except RuntimeError as e:  # pragma: no cover - needs a live cluster
-            # The TPU runtime may have bootstrapped the distributed service
-            # itself (megascale); "already initialized" is success.
+            # a launcher may have initialized the distributed service
+            # already; "already initialized" is success
             if "already" not in str(e).lower():
                 raise
     _INITIALIZED = True
@@ -76,9 +72,9 @@ def ensure_initialized(
 def global_mesh_1d(axis_name: str = "x") -> jax.sharding.Mesh:
     """1-D mesh over all devices of all processes, host-major order.
 
-    Host-major ordering keeps each host's chips contiguous on the axis, so
-    the bulk of ``sort_sharded``'s all-to-all volume rides ICI and only the
-    inter-host remainder crosses DCN.
+    Host-major ordering keeps each host's cards contiguous on the axis, so
+    the bulk of ``sort_sharded``'s all-to-all volume rides NVLink and only
+    the inter-host remainder crosses the network.
     """
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     return jax.sharding.Mesh(np.asarray(devs), (axis_name,))

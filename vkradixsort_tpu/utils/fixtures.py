@@ -13,6 +13,9 @@ import numpy as np
 
 def make_keys(rng, n, dtype=np.uint32, distribution="uniform28"):
     dtype = np.dtype(dtype)
+    if dtype.kind == "V":
+        # ml_dtypes' bfloat16: draw as float32, then round to the narrow type
+        return make_keys(rng, n, np.float32, distribution).astype(dtype)
     if distribution == "uniform28":
         hi = min(1 << 28, int(np.iinfo(dtype).max)) if dtype.kind == "u" else 1 << 28
         return rng.integers(
